@@ -6,8 +6,7 @@ the BASELINE rate/pitch matrix (rates 0.5-2.0, +/-12 st: the >=40 dB
 domain, all deterministic-step regime).
 
 Usage: PYTHONPATH=. python benchmarks/bench_fidelity.py [streams] [hops]
-Writes the same line to BENCH_FIDELITY_r04.json when run from the repo
-root via `python benchmarks/bench_fidelity.py --record`.
+Needs a GPU.
 """
 
 from __future__ import annotations
@@ -27,19 +26,16 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/bauklank_jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from bauklank.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     args = [a for a in sys.argv[1:] if not a.startswith("-")]
-    record = "--record" in sys.argv
     s = int(args[0]) if len(args) > 0 else 128
     h = int(args[1]) if len(args) > 1 else 8
     reps = 12
 
-    from bauklank_tpu.engine.fidelity import (
+    from bauklank.engine.fidelity import (
         SpectralConfig,
         batched_fidelity_chunk,
         init_batched_fidelity_state,
@@ -91,10 +87,6 @@ def main():
         "vs_baseline": round(agg / BASELINE_TARGET, 4),
     }
     print(json.dumps(line))
-    if record:
-        with open("BENCH_FIDELITY_r04.json", "w") as f:
-            json.dump(line, f)
-            f.write("\n")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,6 @@
 """Stage decomposition of the fidelity chain-inputs cost (round 3).
 
-chain_inputs_hops measured ~45 ms/hop at S=64 on the v5e — this script
-times each constituent stage at the serving shape to find where it goes:
+This script times each constituent stage of chain_inputs_hops at the serving shape to find where it goes:
 smoothers, peak map (scatter-adds), the five-family row gathers, the
 energy/prev gathers, MINSTD draws, and the elementwise tail.
 
@@ -22,13 +21,11 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/bauklank_jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from bauklank.utils.compile_cache import enable_compile_cache
 
-    from bauklank_tpu.engine.spectral import (
+    enable_compile_cache()
+
+    from bauklank.engine.spectral import (
         SpectralConfig,
         _find_peaks_map,
         _get_fractional,
@@ -98,7 +95,7 @@ def main():
 
     timeit("find_peaks_map (scatters)", peaks, energy, sm, mult, limit)
 
-    from bauklank_tpu.engine.spectral import (
+    from bauklank.engine.spectral import (
         _find_peaks_map_batched,
         _peaks_block_t,
     )

@@ -31,20 +31,18 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/bauklank_jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from bauklank.utils.compile_cache import enable_compile_cache
 
-    from bauklank_tpu.engine.fidelity import (
+    enable_compile_cache()
+
+    from bauklank.engine.fidelity import (
         SpectralConfig,
         analyse_frames,
         batched_fidelity_chunk,
         batched_fidelity_chunk_scan,
         init_batched_fidelity_state,
     )
-    from bauklank_tpu.engine.spectral import chain_inputs_hops
+    from bauklank.engine.spectral import chain_inputs_hops
 
     reps = int(sys.argv[1]) if len(sys.argv) > 1 else 6
     block = round(0.12 * SR)

@@ -31,13 +31,11 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/bauklank_jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from bauklank.utils.compile_cache import enable_compile_cache
 
-    from bauklank_tpu.engine.spectral import (
+    enable_compile_cache()
+
+    from bauklank.engine.spectral import (
         SpectralConfig,
         _find_peaks_map_batched,
         _hop_post_gather,
@@ -45,8 +43,8 @@ def main():
         _peaks_block_t,
         _smooth_bidirectional,
     )
-    from bauklank_tpu.ops.blockgather import block_gather
-    from bauklank_tpu.ops.windowgather import window_gather_taps, window_t1
+    from bauklank.ops.blockgather import block_gather
+    from bauklank.ops.windowgather import window_gather_taps, window_t1
 
     s_n = int(sys.argv[1]) if len(sys.argv) > 1 else 64
     h = int(sys.argv[2]) if len(sys.argv) > 2 else 8

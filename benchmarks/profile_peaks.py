@@ -23,14 +23,12 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/bauklank_jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from bauklank.utils.compile_cache import enable_compile_cache
 
-    from bauklank_tpu.engine.spectral import SpectralConfig
-    from bauklank_tpu.ops.blockgather import block_gather
+    enable_compile_cache()
+
+    from bauklank.engine.spectral import SpectralConfig
+    from bauklank.ops.blockgather import block_gather
 
     s = int(sys.argv[1]) if len(sys.argv) > 1 else 64
     h = int(sys.argv[2]) if len(sys.argv) > 2 else 16
@@ -128,7 +126,7 @@ def main():
 
     @jax.jit
     def searchsorted_mm(slots):
-        # idx[b] = #(slots <= b) via chunked one-hot comparisons on the MXU
+        # idx[b] = #(slots <= b) via chunked one-hot comparisons as matmuls
         import jax.numpy as jnp2
         def chunk(sl):
             cmp = (sl[:, :, None] <= b_idx[None, None, :]).astype(jnp.float32)
@@ -146,14 +144,12 @@ def extra():
     """Collision-structure experiments for the segment scatter."""
     import jax
     import jax.numpy as jnp
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/bauklank_jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from bauklank.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import sys, time
     import numpy as np
-    from bauklank_tpu.engine.spectral import SpectralConfig
+    from bauklank.engine.spectral import SpectralConfig
     s = int(sys.argv[1]) if len(sys.argv) > 1 else 64
     h = int(sys.argv[2]) if len(sys.argv) > 2 else 16
     cfg = SpectralConfig(channels=2, block=round(0.12*SR), interval=round(0.03*SR))

@@ -30,11 +30,11 @@ def main(argv=None) -> int:
         except RuntimeError:
             pass
 
-    from bauklank_tpu.models import KIOSK_ENGINE_A, KIOSK_ENGINE_B
-    from bauklank_tpu.runtime import wav_write
-    from bauklank_tpu.serve.pool import StreamPool
-    from bauklank_tpu.serve.serial import FakeController
-    from bauklank_tpu.serve.server import ControlServer
+    from bauklank.models import KIOSK_ENGINE_A, KIOSK_ENGINE_B
+    from bauklank.runtime import wav_write
+    from bauklank.serve.pool import StreamPool
+    from bauklank.serve.serial import FakeController
+    from bauklank.serve.server import ControlServer
 
     ap = argparse.ArgumentParser()
     ap.add_argument("output")

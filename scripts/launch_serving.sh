@@ -20,7 +20,7 @@ cleanup() {
 }
 trap cleanup EXIT INT TERM
 
-python -m bauklank_tpu serve \
+python -m bauklank serve \
   --engine-count "$ENGINE_COUNT" --slot "$SLOT" \
   --ws-port "$WS_PORT" --pool-capacity "$POOL_CAPACITY" \
   --startup-log-level "$LOG_LEVEL" --run-log-level "$LOG_LEVEL" &

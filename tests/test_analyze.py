@@ -6,7 +6,7 @@ import jax.numpy as jnp
 
 from tests.util import tone
 
-from bauklank_tpu.ops.analyze import levels, scope_buckets, spectrum_db
+from bauklank.ops.analyze import levels, scope_buckets, spectrum_db
 
 SR = 44100.0
 

@@ -5,10 +5,10 @@ import pytest
 
 from tests.util import tone
 
-from bauklank_tpu.engine.config import StretchConfig
-from bauklank_tpu.serve.pool import StreamPool
-from bauklank_tpu.utils.checkpoint import load_pool, load_pytree, save_pool, save_pytree
-from bauklank_tpu.utils.metrics import RateMeter, StepTimer
+from bauklank.engine.config import StretchConfig
+from bauklank.serve.pool import StreamPool
+from bauklank.utils.checkpoint import load_pool, load_pytree, save_pool, save_pytree
+from bauklank.utils.metrics import RateMeter, StepTimer
 
 SR = 44100.0
 
@@ -86,8 +86,8 @@ def test_fidelity_pool_checkpoint_resume(tmp_path):
     carried MINSTD seed — a uint32 leaf) must round-trip sample-exactly."""
     import numpy as np
 
-    from bauklank_tpu.serve.pool import StreamPool
-    from bauklank_tpu.utils.checkpoint import load_pool, save_pool
+    from bauklank.serve.pool import StreamPool
+    from bauklank.utils.checkpoint import load_pool, save_pool
     from tests.util import tone
 
     sr = 8000.0

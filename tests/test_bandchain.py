@@ -1,4 +1,7 @@
-"""Pallas band-chain kernel vs a straight-numpy restatement of the chain."""
+"""The Triton band-chain kernel (interpret mode) against a straight-numpy
+restatement of the chain and against the engine's ``lax.scan`` form."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -6,13 +9,20 @@ import pytest
 jnp = pytest.importorskip("jax.numpy")
 import jax  # noqa: E402
 
-from bauklank_tpu.ops.pallas.bandchain import band_chain  # noqa: E402
+from bauklank.engine.spectral import (  # noqa: E402
+    SpectralConfig,
+    _band_chain_kernel,
+    _band_chain_scan,
+    band_chain_batched,
+    band_chain_impl,
+)
+from bauklank.ops.pallas.bandchain import TILE, UNROLL, band_chain  # noqa: E402
 
 EPS = 1e-15
 
 
 def _chain_numpy(d1, d2, u, pe, pi, mc, lock, pec, pic, long_step):
-    """[S] streams x [B] bands x [C] channels reference chain."""
+    """[S] streams x [B] bands x [C] channels reference chain (float64)."""
     s_n, b_n = pe.shape
     c_n = lock.shape[0]
     out = np.zeros((c_n, s_n, b_n), complex)
@@ -42,66 +52,88 @@ def _chain_numpy(d1, d2, u, pe, pi, mc, lock, pec, pic, long_step):
     return out
 
 
-@pytest.mark.parametrize("c_n,long_step,b_n", [(1, 4, 256), (2, 5, 512)])
-def test_band_chain_matches_numpy(c_n, long_step, b_n):
-    s_n = 128  # one lane tile
-    rng = np.random.default_rng(3)
+def _random_chain(s_n, b_n, c_n, seed=3):
+    """Chain operands in the engine's [S, ...] layout, with exact zeros at
+    band 5 to exercise the EPS fallbacks."""
+    rng = np.random.default_rng(seed)
 
     def cplx(shape):
-        return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(
-            np.complex64
-        )
+        return ((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+                * 0.5).astype(np.complex64)
 
-    d1, d2, u, pi = (cplx((s_n, b_n)) * 0.5 for _ in range(4))
+    d1, d2, u, pi = (cplx((s_n, b_n)) for _ in range(4))
     pe = np.abs(rng.standard_normal((s_n, b_n))).astype(np.float32) + 0.01
     mc = rng.integers(0, c_n, (s_n, b_n)).astype(np.int32)
-    lock = cplx((c_n, s_n, b_n))
-    pec = np.abs(rng.standard_normal((c_n, s_n, b_n))).astype(np.float32) + 0.01
-    pic = cplx((c_n, s_n, b_n))
-    # sprinkle exact zeros to exercise the EPS fallbacks
-    u[:, 5] = 0.0
-    d1[:, 5] = 0.0
-    d2[:, 5] = 0.0
+    lock = cplx((s_n, c_n, b_n)) * 2
+    pec = np.abs(rng.standard_normal((s_n, c_n, b_n))).astype(np.float32) + 0.01
+    pic = cplx((s_n, c_n, b_n)) * 2
+    if b_n > 5:
+        u[:, 5] = 0.0
+        d1[:, 5] = 0.0
+        d2[:, 5] = 0.0
+    return d1, d2, u, pe, pi, mc, lock, pec, pic
 
-    want = _chain_numpy(d1, d2, u, pe, pi, mc, lock, pec, pic, long_step)
 
-    def plane(z):  # [S, B] complex -> re/im [B, S]
-        return np.real(z).T.astype(np.float32), np.imag(z).T.astype(np.float32)
+# (channels, long_step, bands, streams): channels 1/2; long_step 1 (kiosk,
+# single-row ring), 4, 5 (preset); band counts off the unroll (tail loop)
+# and below one unroll; stream counts off the tile (padding) and over it
+CASES = [
+    (1, 4, 64, TILE),
+    (2, 5, 100, 5),
+    (2, 1, 37, 33),
+    (1, 1, UNROLL - 3, 1),
+    (2, 4, 3 * UNROLL, 2 * TILE),
+    (1, 5, 71, 7),
+]
 
-    lead = np.stack(
-        [*plane(d1), *plane(d2), *plane(u), *plane(pi),
-         pe.T.astype(np.float32)]
-    )  # [9, B, S]
-    onehot = (np.arange(c_n)[:, None, None] == mc[None]).astype(np.float32)
-    chan = np.stack(
-        [
-            np.stack([
-                onehot[c].T,
-                *[a.T.astype(np.float32) for a in
-                  (np.real(lock[c]), np.imag(lock[c]))],
-                pec[c].T.astype(np.float32),
-                *[a.T.astype(np.float32) for a in
-                  (np.real(pic[c]), np.imag(pic[c]))],
-            ])
-            for c in range(c_n)
-        ]
-    )  # [C, 6, B, S]
 
-    out = np.asarray(band_chain(jnp.asarray(lead), jnp.asarray(chan), long_step,
-                                True))
-    got = (out[:, 0] + 1j * out[:, 1]).transpose(0, 2, 1)  # [C, S, B]
+@pytest.mark.parametrize("c_n,long_step,b_n,s_n", CASES)
+def test_band_chain_matches_numpy(c_n, long_step, b_n, s_n):
+    d1, d2, u, pe, pi, mc, lock, pec, pic = _random_chain(s_n, b_n, c_n)
+    want = _chain_numpy(d1, d2, u, pe, pi, mc,
+                        lock.transpose(1, 0, 2), pec.transpose(1, 0, 2),
+                        pic.transpose(1, 0, 2), long_step)     # [C, S, B]
+    cfg_like = type("Cfg", (), {"channels": c_n, "long_step": long_step})
+    got = _band_chain_kernel(
+        cfg_like, tuple(map(jnp.asarray, (d1, d2, u, pe, pi, mc, lock, pec,
+                                          pic))),
+        interpret=True)                                        # [S, C, B]
     # float64 oracle vs the f32 kernel: a few elements near normalization
-    # boundaries differ at ~1e-4; the strict f32-vs-f32 equivalence against
-    # the engine's lax.scan is pinned in tests/test_spectral.py
-    np.testing.assert_allclose(got, want, rtol=1e-3, atol=5e-4)
+    # boundaries differ at ~1e-4 (f32 rounding through the chain)
+    np.testing.assert_allclose(np.asarray(got).transpose(1, 0, 2), want,
+                               rtol=1e-3, atol=5e-4)
 
 
-def test_spectral_hop_batched_kernel_matches_scan():
-    """spectral_hop_batched with the Pallas chain (interpret mode) must
-    match the vmapped lax.scan path bit-for-bit-ish (same f32 math)."""
-    from bauklank_tpu.engine.spectral import (
-        SpectralConfig, init_spectral_state, spectral_hop_batched,
-    )
+@pytest.mark.parametrize("c_n,long_step,b_n,s_n", CASES)
+def test_band_chain_matches_scan(c_n, long_step, b_n, s_n):
+    """Kernel (interpret mode) vs the vmapped lax.scan on identical f32
+    inputs.  Tolerance: the kernel forms |z|^2 as re*re + im*im (the
+    blob's std::norm) while the scan squares XLA's complex abs, so single
+    bands differ in the last bits and the chain carries that forward."""
+    chain = tuple(map(jnp.asarray, _random_chain(s_n, b_n, c_n, seed=11)))
+    cfg_like = type("Cfg", (), {"channels": c_n, "long_step": long_step,
+                                "bands": b_n})
+    got = _band_chain_kernel(cfg_like, chain, interpret=True)
+    want = jax.vmap(functools.partial(_band_chain_scan, cfg_like))(chain)
+    assert got.shape == want.shape == (s_n, c_n, b_n)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_band_chain_rejects_untiled_streams():
+    """The raw kernel takes only tile-multiple stream counts; the engine
+    wrapper pads."""
+    lead = jnp.zeros((10, 16, TILE + 1), jnp.float32)
+    chan = jnp.zeros((1, 5, 16, TILE + 1), jnp.float32)
+    with pytest.raises(ValueError, match="multiple"):
+        band_chain(lead, chan, long_step=1, interpret=True)
+
+
+def test_kernel_matches_scan_on_engine_inputs():
+    """On chain inputs the engine builds (spectral_hop_batched's gather
+    stage, deterministic and MINSTD streams), the kernel matches the
+    scan, and ``band_chain_batched`` on the CPU is the scan exactly."""
+    from bauklank.engine.spectral import _chain_inputs, init_spectral_state
 
     cfg = SpectralConfig(2, 256, 64)
     s_n = 4
@@ -121,11 +153,27 @@ def test_spectral_hop_batched_kernel_matches_scan():
     tf = jnp.asarray(np.linspace(0.8, 4.0, s_n), jnp.float32)  # incl. MINSTD
     mult = jnp.asarray(np.linspace(0.7, 1.6, s_n), jnp.float32)
     lim = jnp.full((s_n,), 0.18, jnp.float32)
+    chain, _ = jax.vmap(
+        lambda st, a, b, t, m, l: _chain_inputs(cfg, st, a, b, t, m, l)
+    )(states, si, sp, tf, mult, lim)
 
-    st_k, out_k = spectral_hop_batched(cfg, states, si, sp, tf, mult, lim,
-                                       use_kernel=True)
-    st_s, out_s = spectral_hop_batched(cfg, states, si, sp, tf, mult, lim,
-                                       use_kernel=False)
-    np.testing.assert_allclose(np.asarray(out_k), np.asarray(out_s),
+    k = _band_chain_kernel(cfg, chain, interpret=True)
+    s = jax.vmap(functools.partial(_band_chain_scan, cfg))(chain)
+    np.testing.assert_allclose(np.asarray(k), np.asarray(s),
                                rtol=1e-5, atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(st_k.rng), np.asarray(st_s.rng))
+    dispatched = jax.jit(functools.partial(band_chain_batched, cfg))(chain)
+    np.testing.assert_array_equal(np.asarray(dispatched), np.asarray(s))
+
+
+@pytest.mark.parametrize(
+    "platform,impl",
+    [("cpu", "scan"), ("gpu", "kernel"), ("cuda", "kernel")],
+)
+def test_band_chain_impl_per_platform(platform, impl):
+    assert band_chain_impl(platform) == impl
+
+
+@pytest.mark.parametrize("platform", ["rocm", "metal", "", "gpu0"])
+def test_band_chain_impl_rejects_other_platforms(platform):
+    with pytest.raises(ValueError, match="no band-chain implementation"):
+        band_chain_impl(platform)

@@ -16,8 +16,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from bauklank_tpu.engine.spectral import _get_fractional
-from bauklank_tpu.ops.blockgather import block_gather, block_gather_complex
+from bauklank.engine.spectral import _get_fractional
+from bauklank.ops.blockgather import block_gather, block_gather_complex
 
 B = 96   # band count (divides by t=32 -> 3 blocks)
 T = 32

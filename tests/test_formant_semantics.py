@@ -4,7 +4,7 @@ section; exports app/SignalsmithStretch.mjs:473-475)."""
 
 import numpy as np
 
-from bauklank_tpu.engine import StretchConfig, StretchParams, stretch_offline
+from bauklank.engine import StretchConfig, StretchParams, stretch_offline
 
 SR = 44100.0
 

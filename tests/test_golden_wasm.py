@@ -45,7 +45,7 @@ def test_snr_vs_reference_wasm(golden, name, rate, semitones, channels, extras):
     incl. rate < 0.5 (MINSTD), the formant cases, and the DEPLOYED kiosk
     geometry (blockMs=200/overlap=1.0, rate 0.001-0.01 — the kiosk_ cases;
     reference app/multi/app.mjs:124-130)."""
-    from bauklank_tpu.engine.fidelity import render_fidelity
+    from bauklank.engine.fidelity import render_fidelity
 
     x = material.case_input(rate, channels)
     n_out = int(material.SECONDS * material.SR)
@@ -93,10 +93,10 @@ def test_serving_path_snr_vs_reference_wasm(golden, name, rate, semitones,
     import jax
     import jax.numpy as jnp
 
-    from bauklank_tpu.engine.fidelity import (
+    from bauklank.engine.fidelity import (
         batched_fidelity_chunk, hop_frame_ends,
     )
-    from bauklank_tpu.engine.spectral import SpectralConfig, init_spectral_state
+    from bauklank.engine.spectral import SpectralConfig, init_spectral_state
 
     sr = material.SR
     ex = material.renderer_extras(extras)
@@ -161,10 +161,10 @@ def test_live_snr_vs_reference_wasm(golden, name, semitones, channels, extras):
     blob-exact engine previously had no live-input mode at all."""
     import jax.numpy as jnp
 
-    from bauklank_tpu.engine.fidelity import (
+    from bauklank.engine.fidelity import (
         batched_live_fidelity_chunk, init_batched_live_fidelity_state,
     )
-    from bauklank_tpu.engine.spectral import SpectralConfig
+    from bauklank.engine.spectral import SpectralConfig
 
     sr = material.SR
     ex = material.renderer_extras(extras)

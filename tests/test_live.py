@@ -7,10 +7,10 @@ from tests.util import dominant_freq, snr_db, tone
 
 import jax.numpy as jnp
 
-from bauklank_tpu.engine.config import StretchConfig
-from bauklank_tpu.engine.live import init_live_state, process_live
-from bauklank_tpu.engine.params import StretchParams
-from bauklank_tpu.node import StretchNode
+from bauklank.engine.config import StretchConfig
+from bauklank.engine.live import init_live_state, process_live
+from bauklank.engine.params import StretchParams
+from bauklank.node import StretchNode
 
 SR = 44100.0
 CFG = StretchConfig(channels=1, block=1024, interval=256, formants=False)

@@ -4,8 +4,8 @@ import numpy as np
 
 from tests.util import dominant_freq, tone
 
-from bauklank_tpu.engine.config import StretchConfig
-from bauklank_tpu.serve.livepool import LivePool
+from bauklank.engine.config import StretchConfig
+from bauklank.serve.livepool import LivePool
 
 SR = 44100.0
 
@@ -74,8 +74,8 @@ def test_livepool_fidelity_engine():
     batched_live_fidelity_chunk directly."""
     import jax.numpy as jnp
 
-    from bauklank_tpu.engine.fidelity import init_batched_live_fidelity_state
-    from bauklank_tpu.engine.spectral import SpectralConfig
+    from bauklank.engine.fidelity import init_batched_live_fidelity_state
+    from bauklank.engine.spectral import SpectralConfig
 
     cfg = StretchConfig(channels=1, block=512, interval=128, formants=False)
     pool = LivePool(capacity=2, sample_rate=SR, channels=1, config=cfg,
@@ -99,8 +99,8 @@ def test_livepool_fidelity_engine():
     # param packing, and the state threading.  (An eager engine-level
     # drive is NOT a fair bitwise oracle: jit-vs-eager ulp differences
     # compound through the hop recurrence to ~2e-3 over 128 hops, the
-    # same drift class as docs/STATUS-r4.md's CPU-vs-TPU scan trees.)
-    from bauklank_tpu.serve.livepool import _live_fidelity_step
+    # same drift class as two backends' scan trees.)
+    from bauklank.serve.livepool import _live_fidelity_step
 
     scfg = SpectralConfig(1, 512, 128)
     st = init_batched_live_fidelity_state(scfg, 8, 2)

@@ -2,7 +2,7 @@
 
 import pytest
 
-from bauklank_tpu.models import (
+from bauklank.models import (
     DEFAULT_TOPOLOGY,
     DEV_SINGLE,
     KIOSK_ENGINE_A,
@@ -32,7 +32,7 @@ def test_kiosk_presets_match_reference_defaults():
 def test_preset_schedule_obj_keys():
     obj = KIOSK_ENGINE_A.schedule_obj(output=1.0)
     assert obj["rate"] == 0.001 and obj["tonalityHz"] == 16000.0
-    from bauklank_tpu.schedule import TimeMap
+    from bauklank.schedule import TimeMap
 
     tm = TimeMap()
     seg = tm.schedule(obj)

@@ -1,4 +1,4 @@
-"""Native mp3 decoder (bauklank_tpu.runtime.mp3) — C18 ingestion parity.
+"""Native mp3 decoder (bauklank.runtime.mp3) — C18 ingestion parity.
 
 The reference kiosk's default content is mp3, decoded by the browser's
 ``decodeAudioData`` (reference app/multi/app.mjs:10-22, 365-395).  Here
@@ -24,7 +24,7 @@ import sys
 import numpy as np
 import pytest
 
-from bauklank_tpu.runtime.mp3 import decode_mp3
+from bauklank.runtime.mp3 import decode_mp3
 
 sys.path.insert(0, "tools")
 
@@ -179,7 +179,7 @@ def test_edge_frames_against_oracle(name, ch, mint):
 
 
 def test_load_audio_decodes_mp3_natively(tmp_path):
-    from bauklank_tpu.utils.audio import load_audio
+    from bauklank.utils.audio import load_audio
 
     planes, sr = load_audio(FIXTURES / "tone_jstereo.mp3")
     assert sr == 44100 and planes.shape[0] == 2 and planes.dtype == np.float32

@@ -5,8 +5,8 @@ import pytest
 
 from tests.util import dominant_freq, tone
 
-from bauklank_tpu.engine.config import StretchConfig
-from bauklank_tpu.node import StretchNode
+from bauklank.engine.config import StretchConfig
+from bauklank.node import StretchNode
 
 SR = 44100.0
 

@@ -8,7 +8,7 @@ from tests.util import snr_db, tone
 
 import jax.numpy as jnp
 
-from bauklank_tpu.ops import framing, mdft, pitchmap, resample, windows
+from bauklank.ops import framing, mdft, pitchmap, resample, windows
 
 
 @pytest.mark.parametrize("block,interval", [(512, 128), (480, 320), (882, 441), (8820, 2205), (1024, 1024)])
@@ -48,7 +48,7 @@ def test_mdft_fused_equals_fast(n):
     # center-phase and synthesis-window diagonals.
     import jax
 
-    from bauklank_tpu.engine.core import _center_phase
+    from bauklank.engine.core import _center_phase
 
     rng = np.random.default_rng(7)
     x = jnp.asarray(rng.standard_normal((2, 3, n)).astype(np.float32))

@@ -1,16 +1,17 @@
 """Batched + sharded serving step on a virtual 8-device CPU mesh."""
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
 
 from tests.util import tone
 
-from bauklank_tpu.engine import StretchConfig, StretchParams
-from bauklank_tpu.engine.batched import batched_process_chunk, init_batched_state
-from bauklank_tpu.engine.offline import frame_ends_for
-from bauklank_tpu.parallel import shard_streams, sharded_step, stream_mesh
+from bauklank.engine import StretchConfig, StretchParams
+from bauklank.engine.batched import batched_process_chunk, init_batched_state
+from bauklank.engine.offline import frame_ends_for
+from bauklank.parallel import shard_streams, sharded_step, stream_mesh
 
 SR = 44100.0
 CFG = StretchConfig(channels=2, block=512, interval=128, formants=True)
@@ -32,7 +33,7 @@ def _setup(n_streams, t=12000, hops=16):
 
 
 def test_batched_matches_per_stream():
-    from bauklank_tpu.engine.core import init_state, process_chunk
+    from bauklank.engine.core import init_state, process_chunk
 
     states, audios, ends, params = _setup(4)
     _, out_b = batched_process_chunk(CFG, states, audios, ends, params)
@@ -78,10 +79,10 @@ def test_fidelity_stream_sharded_matches_unsharded():
     band chain has no cross-stream dependence)."""
     from jax.sharding import NamedSharding, PartitionSpec
 
-    from bauklank_tpu.engine.fidelity import (
+    from bauklank.engine.fidelity import (
         SpectralConfig, batched_fidelity_chunk, init_batched_fidelity_state,
     )
-    from bauklank_tpu.parallel import stream_mesh
+    from bauklank.parallel import stream_mesh
 
     cfg = SpectralConfig(2, 512, 128)
     s_n = 8
@@ -121,12 +122,12 @@ def test_sharded_fidelity_step_matches_unsharded():
     in/out + donated states, the serving-fleet compile path and dryrun
     stage 3) matches the unsharded chunk, formants engaged, across two
     donated steps."""
-    from bauklank_tpu.engine.fidelity import (
+    from bauklank.engine.fidelity import (
         SpectralConfig, batched_fidelity_chunk, hop_frame_ends,
         init_batched_fidelity_state,
     )
-    from bauklank_tpu.parallel import shard_streams, stream_mesh
-    from bauklank_tpu.parallel.mesh import sharded_fidelity_step
+    from bauklank.parallel import shard_streams, stream_mesh
+    from bauklank.parallel.mesh import sharded_fidelity_step
 
     cfg = SpectralConfig(2, 512, 128, formants=True)
     s_n, h_n = 16, 3
@@ -166,7 +167,7 @@ def test_sharded_fidelity_step_matches_unsharded():
     )
 
     mesh = stream_mesh(8)
-    step = sharded_fidelity_step(cfg, mesh, formants=True)
+    step = sharded_fidelity_step(cfg, mesh)
     sh_args = shard_streams(
         mesh, (init_batched_fidelity_state(cfg, s_n), audios, ends) + args
     )
@@ -191,12 +192,12 @@ def test_sharded_live_fidelity_step_matches_unsharded():
     chunk across two donated steps — live voices are pure data
     parallelism (each carries its own input ring; reference live branch
     app/SignalsmithStretch.mjs:870-882)."""
-    from bauklank_tpu.engine.fidelity import (
+    from bauklank.engine.fidelity import (
         SpectralConfig, batched_live_fidelity_chunk,
         init_batched_live_fidelity_state,
     )
-    from bauklank_tpu.parallel import shard_streams, stream_mesh
-    from bauklank_tpu.parallel.mesh import sharded_live_fidelity_step
+    from bauklank.parallel import shard_streams, stream_mesh
+    from bauklank.parallel.mesh import sharded_live_fidelity_step
 
     cfg = SpectralConfig(2, 512, 128)
     s_n, h_n = 16, 2
@@ -229,7 +230,7 @@ def test_sharded_live_fidelity_step_matches_unsharded():
         cfg, st_ref, chunks[1], *args)
 
     mesh = stream_mesh(8)
-    step = sharded_live_fidelity_step(cfg, h_n, mesh)
+    step = sharded_live_fidelity_step(cfg, mesh)
     sh = shard_streams(
         mesh,
         (init_batched_live_fidelity_state(cfg, h_n, s_n), chunks[0]) + args,
@@ -241,3 +242,66 @@ def test_sharded_live_fidelity_step_matches_unsharded():
     _, out_sh2 = step(st_sh, shard_streams(mesh, chunks[1]), *sh[2:])
     np.testing.assert_allclose(np.asarray(out_ref2), np.asarray(out_sh2),
                                atol=2e-4)
+
+
+@pytest.mark.parametrize("live", [False, True])
+def test_sharded_fidelity_steps_are_one_device_replicas(live):
+    """Each device runs the one-device program on its own streams: the
+    sharded result is bit-identical to the one-device step run block by
+    block, over several hops (the carried band chain amplifies any
+    last-bit difference), and the per-device program holds no collective."""
+    import functools
+
+    from bauklank.engine.fidelity import (
+        SpectralConfig, batched_fidelity_chunk, batched_live_fidelity_chunk,
+        init_batched_fidelity_state, init_batched_live_fidelity_state,
+    )
+    from bauklank.parallel import stream_mesh
+    from bauklank.parallel.mesh import (
+        sharded_fidelity_step, sharded_live_fidelity_step,
+    )
+
+    cfg = SpectralConfig(2, 512, 128)
+    s_n, h_n, n_dev = 16, 3, 8
+    per = s_n // n_dev
+    mesh = stream_mesh(n_dev)
+    rng = np.random.default_rng(11)
+    rates = np.linspace(0.5, 2.0, s_n).astype(np.float32)
+    mult = jnp.asarray(np.exp2(np.linspace(-7, 7, s_n) / 12).astype(np.float32))
+    limit = jnp.full((s_n,), 0.18, jnp.float32)
+    ones = jnp.ones((s_n,), jnp.float32)
+    if live:
+        step = sharded_live_fidelity_step(cfg, mesh)
+        fn = functools.partial(batched_live_fidelity_chunk, cfg)
+        args = (init_batched_live_fidelity_state(cfg, h_n, s_n),
+                jnp.asarray((rng.standard_normal((s_n, 2, h_n * cfg.interval))
+                             * 0.2).astype(np.float32)),
+                mult, limit, ones)
+        fresh = lambda n: init_batched_live_fidelity_state(cfg, h_n, n)
+    else:
+        step = sharded_fidelity_step(cfg, mesh)
+        fn = functools.partial(batched_fidelity_chunk, cfg)
+        ends = (700 + np.arange(h_n)[None] * cfg.interval
+                * rates[:, None]).round().astype(np.int32)
+        args = (init_batched_fidelity_state(cfg, s_n),
+                jnp.asarray((rng.standard_normal((s_n, 2, 6000)) * 0.2
+                             ).astype(np.float32)),
+                jnp.asarray(ends), jnp.asarray(1.0 / rates), mult, limit,
+                ones)
+        fresh = lambda n: init_batched_fidelity_state(cfg, n)
+
+    _, out = step(*args)
+    assert len(out.sharding.device_set) == n_dev
+    one = jax.jit(fn)
+    blocks = np.concatenate([
+        np.asarray(one(fresh(per), *(a[k * per:(k + 1) * per]
+                                     for a in args[1:]))[1])
+        for k in range(n_dev)])
+    np.testing.assert_array_equal(np.asarray(out), blocks)
+
+    shard0 = jax.tree.map(lambda x: jax.device_put(x[:per], mesh.devices.flat[0]),
+                          (fresh(s_n),) + args[1:])
+    hlo = step.one.lower(*shard0).compile().as_text()
+    for collective in ("all-gather", "all-reduce", "all-to-all",
+                       "collective-permute"):
+        assert collective not in hlo, collective

@@ -1,4 +1,4 @@
-"""Cross-validation: the vectorized TPU engine must match the independent
+"""Cross-validation: the vectorized engine must match the independent
 scalar NumPy renderer sample-for-sample (high SNR)."""
 
 import numpy as np
@@ -6,8 +6,8 @@ import pytest
 
 from tests.util import snr_db, tone
 
-from bauklank_tpu.engine import StretchConfig, StretchParams, stretch_offline
-from bauklank_tpu.refdsp import render_offline
+from bauklank.engine import StretchConfig, StretchParams, stretch_offline
+from bauklank.refdsp import render_offline
 
 SR = 44100.0
 

@@ -7,9 +7,9 @@ import jax
 
 from tests.util import snr_db, tone
 
-from bauklank_tpu.engine import StretchConfig, StretchParams, stretch_offline
-from bauklank_tpu.engine.params import StretchParams as SP
-from bauklank_tpu.parallel.seqpar import stream_seq_mesh, stretch_offline_sharded
+from bauklank.engine import StretchConfig, StretchParams, stretch_offline
+from bauklank.engine.params import StretchParams as SP
+from bauklank.parallel.seqpar import stream_seq_mesh, stretch_offline_sharded
 
 SR = 44100.0
 

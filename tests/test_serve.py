@@ -10,12 +10,12 @@ import pytest
 
 from tests.util import tone
 
-from bauklank_tpu.engine.config import StretchConfig
-from bauklank_tpu.serve import protocol
-from bauklank_tpu.serve.pool import StreamPool
-from bauklank_tpu.serve.serial import EncoderLiveness, FakeController, SerialSession, probe_transport
-from bauklank_tpu.serve.server import ControlServer
-from bauklank_tpu.serve.slots import SlotAllocator
+from bauklank.engine.config import StretchConfig
+from bauklank.serve import protocol
+from bauklank.serve.pool import StreamPool
+from bauklank.serve.serial import EncoderLiveness, FakeController, SerialSession, probe_transport
+from bauklank.serve.server import ControlServer
+from bauklank.serve.slots import SlotAllocator
 
 SR = 44100.0
 
@@ -186,7 +186,7 @@ def test_pool_input_time_tracks_rate():
 def test_hardware_scan_path(monkeypatch):
     """The scan loop probes pyserial-discovered ports (faked here) and
     respects the exclude list (reference SERIAL_PORT_EXCLUDE)."""
-    from bauklank_tpu.serve import serial as ser_mod
+    from bauklank.serve import serial as ser_mod
 
     async def scenario():
         opened = []
@@ -332,7 +332,7 @@ def test_http_status_surface():
 
             page = await asyncio.to_thread(get, "/")
             body = page.read().decode()
-            assert "bauklank_tpu control plane" in body
+            assert "bauklank control plane" in body
 
             try:
                 await asyncio.to_thread(get, "/nope")
@@ -380,7 +380,7 @@ def test_task_supervision_restarts_crashed_task():
 def test_controller_status_topology_decoration():
     """The topology SSOT decorates per-channel encoder deviceIds
     (reference: server-multi.py:26-31, 643-649)."""
-    from bauklank_tpu.models import TimePitchTopology
+    from bauklank.models import TimePitchTopology
 
     async def scenario():
         topo = TimePitchTopology({"enc-top": {"A": "enc-time", "B": "enc-pitch"}})
@@ -435,7 +435,7 @@ def test_serial_digest_logging(caplog):
 
 
 def test_utils_version_format():
-    from bauklank_tpu.utils.version import full_version
+    from bauklank.utils.version import full_version
 
     v = full_version("/root/repo")
     assert v.startswith("0.1.0")
@@ -490,7 +490,7 @@ def test_server_survives_malformed_frames():
 def test_control_client_end_to_end_and_reconnect():
     """ControlClient tracks beacons, dispatches sets, and survives a server
     restart (reconnect loop like the reference frontend)."""
-    from bauklank_tpu.serve.client import ControlClient
+    from bauklank.serve.client import ControlClient
 
     async def scenario():
         port = _free_port()
@@ -566,7 +566,7 @@ def test_control_client_end_to_end_and_reconnect():
 def test_render_loop_paces_to_realtime():
     """The server's render loop keeps the sink ~render_ahead ahead of the
     wall clock (BASELINE config 4 serving cadence)."""
-    from bauklank_tpu.runtime import RingBuffer
+    from bauklank.runtime import RingBuffer
 
     async def scenario():
         pool = _pool()
@@ -847,7 +847,7 @@ def test_status_page_control_surface():
 
 def test_control_client_request_analysis():
     """ControlClient.request_analysis round-trips the analyze protocol."""
-    from bauklank_tpu.serve.client import ControlClient
+    from bauklank.serve.client import ControlClient
 
     async def scenario():
         port = _free_port()

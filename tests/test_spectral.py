@@ -14,8 +14,8 @@ import pytest
 sys.path.insert(0, "tools")
 from golden_wasm.pymodel import ModelConfig, SpectralModel  # noqa: E402
 
-from bauklank_tpu.engine.fidelity import render_fidelity
-from bauklank_tpu.engine.spectral import (
+from bauklank.engine.fidelity import render_fidelity
+from bauklank.engine.spectral import (
     SpectralConfig,
     blob_window,
     fft_size_for,
@@ -109,7 +109,7 @@ def test_identity_passthrough():
 def test_node_fidelity_matches_offline():
     """StretchNode(engine='fidelity') streaming == render_fidelity offline
     for a constant-rate schedule (same frame-end drive, same core)."""
-    from bauklank_tpu.node import StretchNode
+    from bauklank.node import StretchNode
 
     sr = 44100.0
     t = np.arange(int(1.5 * sr)) / sr
@@ -134,9 +134,9 @@ def test_node_fidelity_matches_offline():
 
 def test_pool_fidelity_voice_matches_node():
     """StreamPool(engine='fidelity') per-voice output == the single node."""
-    from bauklank_tpu.node import StretchNode
-    from bauklank_tpu.serve.pool import StreamPool
-    from bauklank_tpu.engine.config import StretchConfig
+    from bauklank.node import StretchNode
+    from bauklank.serve.pool import StreamPool
+    from bauklank.engine.config import StretchConfig
 
     sr = 44100.0
     t = np.arange(int(1.0 * sr)) / sr
@@ -234,7 +234,7 @@ def test_hop_matches_pymodel_formants(factor_st, comp, base, semitones):
 
 def test_node_fidelity_formants():
     """Fidelity-mode node applies formant controls (full control surface)."""
-    from bauklank_tpu.node import StretchNode
+    from bauklank.node import StretchNode
 
     sr = 8000.0
     t = np.arange(int(2 * sr)) / sr
@@ -283,7 +283,7 @@ def _hop_parallel_chunk_matches_scan_form(formants):
     import jax
     import jax.numpy as jnp
 
-    from bauklank_tpu.engine.fidelity import (
+    from bauklank.engine.fidelity import (
         SpectralConfig,
         batched_fidelity_chunk,
         batched_fidelity_chunk_scan,
@@ -348,9 +348,8 @@ def _hop_parallel_chunk_matches_scan_form(formants):
 
 @pytest.mark.golden
 @pytest.mark.parametrize("formants", [False, True])
-@pytest.mark.parametrize("regime", ["mixed", "det", "det-pallas"])
-def test_hoisted_chain_inputs_bit_exact_vs_hop_local(
-        formants, regime, monkeypatch):
+@pytest.mark.parametrize("regime", ["mixed", "det"])
+def test_hoisted_chain_inputs_bit_exact_vs_hop_local(formants, regime):
     """_hop_inputs_hoisted (blockgather serving form) vs double-vmapped
     _hop_local_inputs (the pinned hop-exact path): maxdiff == 0 on every
     operand.  This is the micro-check the hoisted-path docstrings demand
@@ -359,7 +358,7 @@ def test_hoisted_chain_inputs_bit_exact_vs_hop_local(
     and the formant gain path."""
     import jax
 
-    from bauklank_tpu.engine.spectral import (
+    from bauklank.engine.spectral import (
         SpectralConfig,
         _hop_inputs_hoisted,
         _hop_local_inputs,
@@ -385,16 +384,11 @@ def test_hoisted_chain_inputs_bit_exact_vs_hop_local(
         rng.integers(1, 2 ** 31 - 1, (h, s)).astype(np.uint32))
     if regime == "mixed":  # one MINSTD stream -> generic blockgather path
         tf = jnp.asarray([0.8, 2.0, 1000.0], jnp.float32)
-    else:  # every stream deterministic -> a shared-window fast branch:
-        # "det" takes the default XLA window gather (ops/windowgather);
-        # "det-pallas" forces the opt-in chainfetch kernel so its
-        # bit-exactness contract stays covered too
-        if regime == "det-pallas":
-            monkeypatch.setenv("BAUKLANK_CHAINFETCH", "1")
-        else:
-            from bauklank_tpu.ops.windowgather import window_t1
-            assert window_t1(cfg.bands, cfg.long_step) is not None, (
-                "det regime must exercise the window-gather branch")
+    else:  # every stream deterministic -> the shared-window fast
+        # branch (ops/windowgather)
+        from bauklank.ops.windowgather import window_t1
+        assert window_t1(cfg.bands, cfg.long_step) is not None, (
+            "det regime must exercise the window-gather branch")
         tf = jnp.asarray([0.8, 2.0, 1.0], jnp.float32)
     mult = jnp.asarray([1.0, 1.3, 0.7], jnp.float32)    # first: map gated off
     limit = jnp.asarray([0.18, 0.12, 0.2], jnp.float32)
@@ -434,7 +428,7 @@ def test_node_fidelity_splitoff_matches_offline():
     render_fidelity(split_computation=False) offline: the decoded split-off
     drive (zero-headed prev windows, one interval less latency) must flow
     through the chunked serving path identically."""
-    from bauklank_tpu.node import StretchNode
+    from bauklank.node import StretchNode
 
     sr = 44100.0
     t = np.arange(int(1.5 * sr)) / sr
@@ -460,11 +454,11 @@ def test_node_fidelity_splitoff_matches_offline():
 
 @pytest.mark.parametrize("n", [8, 18, 32])  # direct, padded-chunk, exact-chunk
 def test_count_leq_blocked_matches_searchsorted(n):
-    """The MXU 0/1 count (peaks-map searchsorted + sort-free boundary
+    """The 0/1 matmul count (peaks-map searchsorted + sort-free boundary
     compaction) must equal numpy's searchsorted-right for every batch
     residue — including N not a multiple of the chunk, where the inputs
     pad up instead of silently materializing full-batch masks."""
-    from bauklank_tpu.engine.spectral import _count_leq_blocked
+    from bauklank.engine.spectral import _count_leq_blocked
 
     rng = np.random.default_rng(31)
     out_len, t, src = 192, 16, 301

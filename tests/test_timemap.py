@@ -3,7 +3,7 @@ app/SignalsmithStretch.mjs:656-701, 840-889, 617-654)."""
 
 import pytest
 
-from bauklank_tpu.schedule import TimeMap
+from bauklank.schedule import TimeMap
 
 
 def test_initial_segment_defaults():

@@ -5,7 +5,7 @@ engine reset on configure app/SignalsmithStretch.mjs:791-792)."""
 import numpy as np
 import pytest
 
-from bauklank_tpu.serve.unified import UnifiedPool
+from bauklank.serve.unified import UnifiedPool
 from tests.util import tone
 
 SR = 8000.0
@@ -154,7 +154,7 @@ def test_ws_set_block_ms_takes_effect_on_serving_voice():
 
     import websockets
 
-    from bauklank_tpu.serve.server import ControlServer
+    from bauklank.serve.server import ControlServer
 
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -245,7 +245,7 @@ def test_unified_checkpoint_kill_and_resume(tmp_path):
     continuity — the resumed pool's output is bit-identical to the
     original's continuation.  Reference analog: reload-resume semantics
     (app/multi/app.mjs:774-792), which lose engine state; here it survives."""
-    from bauklank_tpu.utils import checkpoint
+    from bauklank.utils import checkpoint
 
     track = [tone(440.0, int(2 * SR), SR)] * 2
     src = tone(990.0, int(2 * SR), SR)
@@ -294,7 +294,7 @@ def test_unified_checkpoint_kill_and_resume(tmp_path):
 
 
 def test_unified_checkpoint_mismatch_rejected(tmp_path):
-    from bauklank_tpu.utils import checkpoint
+    from bauklank.utils import checkpoint
 
     pool = _pool(names=["A"])
     ckpt = tmp_path / "u2"
@@ -312,7 +312,7 @@ def test_unified_checkpoint_kiosk_fidelity_drill(tmp_path):
     README-pi-file-system.md:605-650 to surviving power cuts and still
     loses engine state on reload) checkpoints mid-render and resumes
     bit-identically."""
-    from bauklank_tpu.utils import checkpoint
+    from bauklank.utils import checkpoint
 
     track = [tone(330.0, int(2 * SR), SR)] * 2
 

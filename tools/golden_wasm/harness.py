@@ -114,7 +114,7 @@ def render_reference(
 
 def compare(rate: float, semitones: float, seconds: float = 2.0) -> float:
     """Render both engines at matched settings; returns SNR in dB."""
-    from bauklank_tpu.engine import StretchConfig, StretchParams, stretch_offline
+    from bauklank.engine import StretchConfig, StretchParams, stretch_offline
 
     sr = 44100.0
     rng = np.random.default_rng(0)

@@ -85,7 +85,7 @@ def main():
     args = ap.parse_args()
 
     from golden_wasm import native
-    from bauklank_tpu.engine.spectral import blob_window, fft_size_for
+    from bauklank.engine.spectral import blob_window, fft_size_for
 
     SR = 44100.0
     d = native.WorkletDriver(SR, 1)

@@ -2,7 +2,7 @@
 
 LAME produces neither intensity stereo nor mixed blocks, so the live
 oracle matrix (tests/test_mp3.py) cannot reach those branches of
-``bauklank_tpu.runtime.mp3``.  This module writes conforming frames
+``bauklank.runtime.mp3``.  This module writes conforming frames
 directly — joint-stereo intensity (mode_ext 1 and 3, with mid-band
 bounds, the illegal is_pos marker 7, and content in the catch-all sfb
 21) and mixed blocks (block_type 2, mixed_block_flag 1, with nonzero

@@ -17,7 +17,7 @@ every conforming decoder shares) instead of trusting human recall:
   linbits sequence, plus `htc[2]` directly after, and walks each
   serialized Huffman tree (entry < 0: bit1 jumps forward by -entry,
   bit0 falls through; entry >= 0: leaf) to recover its extent;
-- writes bauklank_tpu/runtime/mp3_tables.py.
+- writes bauklank/runtime/mp3_tables.py.
 
 The output module is committed; this tool only needs re-running if the
 tables are ever suspected corrupt.  Run: python tools/mp3spec/extract_mpg123_tables.py
@@ -30,7 +30,7 @@ import struct
 import sys
 
 LIB = "/opt/venv/lib/python3.12/site-packages/pygame.libs/libmpg123-fad61782.so.0.47.0"
-OUT = "bauklank_tpu/runtime/mp3_tables.py"
+OUT = "bauklank/runtime/mp3_tables.py"
 
 LINBITS = [0] * 16 + [1, 2, 3, 4, 6, 8, 10, 13] + [4, 5, 6, 7, 8, 9, 11, 13]
 

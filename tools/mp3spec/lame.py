@@ -1,7 +1,7 @@
 """Test-side mp3 oracle plumbing: encode via libmp3lame, decode via the
 sandbox's libmpg123 (through pygame/SDL_mixer).
 
-Neither library is a product dependency — ``bauklank_tpu.runtime.mp3``
+Neither library is a product dependency — ``bauklank.runtime.mp3``
 is the product decoder.  These helpers exist so the test suite can
 score it against an independent conforming decoder on material it
 encodes on the fly (every MPEG version / channel mode), and so

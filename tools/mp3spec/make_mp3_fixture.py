@@ -6,7 +6,7 @@ Output (committed):
 - tests/fixtures/tone_jstereo_oracle.npz — oracle PCM (int16, the
   mixer's own output width) + sample rate
 
-tests/test_mp3.py decodes the mp3 with bauklank_tpu.runtime.mp3 and
+tests/test_mp3.py decodes the mp3 with bauklank.runtime.mp3 and
 asserts >= 60 dB against the stored oracle, so the decoder stays gated
 even if lame/pygame ever leave the image.
 

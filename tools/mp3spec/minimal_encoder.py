@@ -4,7 +4,7 @@ Two jobs:
 - probe frames: inject exact integer spectra (|ix| <= 15, Huffman table
   15, scalefactors 0) so the libmpg123 oracle's PCM reveals the decode
   chain's conventions stage by stage (IMDCT phase, frequency inversion,
-  synthesis window) — the method that pinned bauklank_tpu/runtime/mp3.py;
+  synthesis window) — the method that pinned bauklank/runtime/mp3.py;
 - fixture minting: encode a real mono signal via the ISO analysis
   filterbank + MDCT so the repo owns an MPEG-1 test vector with a known
   oracle decode (no encoder exists in the image).
@@ -30,7 +30,7 @@ _T15_CODES = None
 def _t15():
     global _T15_CODES
     if _T15_CODES is None:
-        from bauklank_tpu.runtime import mp3_tables as T
+        from bauklank.runtime import mp3_tables as T
 
         tree = T.HUFF_TREES[15]
         codes = {}

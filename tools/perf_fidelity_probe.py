@@ -1,4 +1,4 @@
-"""TPU throughput probe for the fidelity (blob-exact) engine.
+"""Throughput probe for the fidelity (blob-exact) engine.
 
 Measures the batched hop step (64 streams, preset-default config) — the
 spectral core's band scan is the sequential part; everything else is
@@ -11,7 +11,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from bauklank_tpu.engine.spectral import (
+from bauklank.engine.spectral import (
     SpectralConfig, init_spectral_state, spectral_hop,
 )
 

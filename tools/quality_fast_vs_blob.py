@@ -99,9 +99,9 @@ def lsd_db(ref: np.ndarray, got: np.ndarray, floor_db: float = -80.0) -> float:
 
 
 def score_case(golden, name, rate, semitones, channels, extras) -> dict:
-    from bauklank_tpu.engine.config import StretchConfig
-    from bauklank_tpu.engine.offline import stretch_offline
-    from bauklank_tpu.engine.params import StretchParams
+    from bauklank.engine.config import StretchConfig
+    from bauklank.engine.offline import stretch_offline
+    from bauklank.engine.params import StretchParams
 
     sr = material.SR
     rex = material.renderer_extras(extras)

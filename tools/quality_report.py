@@ -32,8 +32,8 @@ def main(argv=None) -> int:
         except RuntimeError:
             pass
 
-    from bauklank_tpu.engine import StretchConfig, StretchParams, stretch_offline
-    from bauklank_tpu.refdsp import render_offline
+    from bauklank.engine import StretchConfig, StretchParams, stretch_offline
+    from bauklank.refdsp import render_offline
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true")
